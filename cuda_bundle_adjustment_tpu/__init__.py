@@ -1,12 +1,13 @@
-"""TPU-native bundle-adjustment / graph-optimisation engine.
+"""Bundle-adjustment / graph-optimisation engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 KudanLimited/cuda-bundle-adjustment (g2o-style ``BlockSolver_6_3``
 Levenberg-Marquardt for Visual SLAM): SE3-expmap pose vertices, 3D landmark
 vertices, mono/stereo/depth projection edges, point-to-line/point-to-plane ICP
 edges, robust kernels, outlier thresholding, Schur-complement reduction and a
-batched LM outer loop — built statically-shaped and sort-based (no atomics)
-for TPU, scaling over device meshes with ``shard_map`` collectives.
+batched LM outer loop — built statically-shaped and sort-based (no atomics
+on the single-device path), scaling over device meshes with ``shard_map``
+collectives.
 
 Quick start::
 

@@ -1,6 +1,6 @@
 """Graph model: vertices, edges, vertex sets and edge sets.
 
-This is the host-side graph container layer, the TPU-native equivalent of the
+This is the host-side graph container layer, the equivalent of the
 reference's ``optimisable_graph.h/.hpp`` (see /root/reference/src/optimisable_graph.h:109-816).
 Estimates live in numpy on the host; :mod:`.solver.block_solver` packs them
 into statically-shaped, struct-of-arrays device buffers (the Arena analogue,
@@ -55,7 +55,7 @@ class GraphOptimisationOptions:
     """Runtime options (reference: graph_optimisation_options.h:8-19).
 
     ``per_edge_information`` / ``per_edge_camera`` select whether omega and the
-    camera intrinsics are read per edge or once per edge set.  On TPU both
+    camera intrinsics are read per edge or once per edge set.  Both
     modes pack to the same broadcasted device layout; the flags only control
     which host-side values are used.
 
@@ -66,8 +66,8 @@ class GraphOptimisationOptions:
     per_edge_information: bool = False
     per_edge_camera: bool = False
     dtype: str = "float64"
-    # "mixed": f32 MXU Cholesky + f64 iterative refinement (f64-accurate
-    # solutions, ~60x faster); "exact": full f64 factorization
+    # "mixed": f32 Cholesky + f64 iterative refinement (f64-accurate
+    # solutions); "exact": full f64 factorization
     solver_precision: str = "mixed"
 
 

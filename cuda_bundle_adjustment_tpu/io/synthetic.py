@@ -93,9 +93,8 @@ def make_ba_problem(
     # landmarks spread around the trajectory, in front of their anchor poses;
     # anchors are SORTED: real SLAM maps create landmarks sequentially as the
     # camera moves, so landmark ids correlate with trajectory position (true
-    # of the KITTI BA graphs) — downstream, this gives the Pallas expansion
-    # windows their locality (pallas/onehot.py; arbitrary orders fall back to
-    # XLA gathers)
+    # of the KITTI BA graphs) — downstream, this gives the per-edge state
+    # gathers their locality
     anchor = np.sort(rng.integers(0, P, size=L))
     local = np.stack(
         [

@@ -24,7 +24,6 @@ Functional parity with the reference kernels:
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from ..graph import BaseEdge, EdgeSet
@@ -37,114 +36,32 @@ def _pose_state_table(graph: GraphArrays):
     """[P, 12] per-pose state: translation + rotation matrix (row-major).
 
     Rotations are computed once per POSE here — not per edge — saving ~24
-    f64-emulated ops per edge in both the chi and quadratic-form passes
-    (the reference evaluates R(q) per edge, cuda_block_solver.cu:449-478).
+    ops per edge in both the chi and quadratic-form passes (the reference
+    evaluates R(q) per edge, cuda_block_solver.cu:449-478).
     """
     q = graph.q
     R = C.rotmat_comps(q[:, 0], q[:, 1], q[:, 2], q[:, 3])
     return jnp.concatenate([graph.t] + [r[:, None] for r in R], axis=1)
 
 
-def expand_pose_state(graph: GraphArrays, data: PackedEdges):
-    """Per-edge pose state ``[12, E]`` (t + R columns) via the one-hot
-    kernel, including the extras tail.  Exposed so the fused LM loop can
-    compute it ONCE per candidate graph and share it between the trial's
-    chi pass and the next iteration's linearisation.
-
-    Under the group layout the expand plan covers one row per (class, slot,
-    chunk) — every chunk member shares that pose (solver/groups.py
-    ``chunk_pose``) — so the one-hot kernel runs over ~Gc x fewer columns
-    and the member axis is a free broadcast (3.3 -> ~1 ms/iteration at
-    KITTI-00 scale)."""
-    from ..pallas.onehot import expand
-
-    E = data.pose_idx.shape[0]
-    lay = data.lm_slot
-    qt = expand(_pose_state_table(graph), data.pose_xp)
-    if lay is not None:
-        m_chunk = sum(cm.d * cm.nc_pad for cm in lay.classes)
-        if data.pose_xp.num_rows == m_chunk:
-            parts = []
-            off = 0
-            for cm in lay.classes:
-                rows = cm.d * cm.nc_pad
-                seg = jax.lax.slice_in_dim(qt, off, off + rows, axis=1)
-                parts.append(
-                    jnp.broadcast_to(
-                        seg.reshape(12, cm.d, 1, cm.nc_pad),
-                        (12, cm.d, cm.gc, cm.nc_pad),
-                    ).reshape(12, cm.d * cm.gc * cm.nc_pad)
-                )
-                off += rows
-            qt = jnp.concatenate(parts, axis=1)
-    if qt.shape[1] < E:
-        pi_t = data.pose_idx[qt.shape[1] :]
-        qtbl = _pose_state_table(graph).T
-        qt = jnp.concatenate(
-            [qt, qtbl[:, jnp.minimum(pi_t, qtbl.shape[1] - 1)]], axis=1
-        )
-    return qt
-
-
-def _edge_inputs(graph: GraphArrays, data: PackedEdges, pose_state=None):
-    """Gather per-edge component vectors (all [E]) from the small state tables.
-
-    On TPU the gathers run as exact Pallas one-hot MXU selections
-    (pallas/onehot.py, ~3x faster than XLA row gathers and bit-identical);
-    the XLA gather is the CPU/test fallback.  ``pose_state`` short-circuits
-    the pose expansion with a precomputed ``[12, E]`` (expand_pose_state)."""
-    if data.pose_xp is not None or pose_state is not None:
-        from ..pallas.onehot import expand
-
-        E = data.pose_idx.shape[0]
-        qt = (
-            pose_state
-            if pose_state is not None
-            else expand_pose_state(graph, data)
-        )
-        if data.lm_slot is not None:
-            # group layout: landmark state per edge = d stacked slice copies
-            # of each class's state block (slot-major order, solver/groups.py)
-            # — no gather, no one-hot kernel
-            XwT = graph.Xw.T  # [3, L]
-            parts = []
-            for cm in data.lm_slot.classes:
-                S = cm.gc * cm.nc_pad
-                cls = jax.lax.slice_in_dim(
-                    XwT, cm.lm_start, cm.lm_start + S, axis=1
-                )
-                parts.append(jnp.tile(cls, (1, cm.d)))
-            if data.lm_slot.n_extras:
-                li_t = data.lm_idx[data.lm_slot.e_classes :]
-                parts.append(XwT[:, li_t])
-            Xw3 = jnp.concatenate(parts, axis=1)
-        else:
-            Xw3 = expand(graph.Xw, data.lm_xp)
-        if Xw3.shape[1] < E:
-            Xw3 = jnp.concatenate(
-                [Xw3, graph.Xw.T[:, data.lm_idx[Xw3.shape[1] :]]], axis=1
-            )
-        t = tuple(qt[i] for i in range(3))
-        R = tuple(qt[3 + i] for i in range(9))
-        Xw = tuple(Xw3[i] for i in range(3))
-    else:
-        sT = _pose_state_table(graph).T  # [12, P] — tiny transpose
-        XT = graph.Xw.T
-        pi, li = data.pose_idx, data.lm_idx
-        t = tuple(sT[i][pi] for i in range(3))
-        R = tuple(sT[3 + i][pi] for i in range(9))
-        Xw = tuple(XT[i][li] for i in range(3))
+def _edge_inputs(graph: GraphArrays, data: PackedEdges):
+    """Gather per-edge component vectors (all [E]) from the small state
+    tables: row gathers of the ``[12, P]`` pose table and the landmarks."""
+    sT = _pose_state_table(graph).T  # [12, P] — tiny transpose
+    XT = graph.Xw.T
+    pi, li = data.pose_idx, data.lm_idx
+    t = tuple(sT[i][pi] for i in range(3))
+    R = tuple(sT[3 + i][pi] for i in range(9))
+    Xw = tuple(XT[i][li] for i in range(3))
     cam = tuple(data.cam[i] for i in range(5))
     Xc = C.project_w2c_comps(R, t[0], t[1], t[2], Xw[0], Xw[1], Xw[2])
     # mask 1/z at the source: inert/padding edges with degenerate geometry
     # must not inject inf/NaN anywhere downstream.  The float ``active``
     # factor (exactly 1.0 for live rows) replaces a bool ``active > 0``
-    # predicate — hoisted bool masks were showing up as per-iteration loop
-    # copies in the fused-loop device trace.  The guard is a MAGNITUDE test,
-    # not ``!= 0``: a padding row with |z| below the float-float overflow
-    # threshold (~1e-38 on TPU) would make 1/z = inf and 0*inf = NaN, which
-    # poisons the summed chi for the whole step; |z| > 1e-30 keeps inv_z an
-    # exact 0 for every degenerate row (NaN z also fails the comparison)
+    # predicate.  The guard is a MAGNITUDE test, not ``!= 0``: a padding row
+    # with a tiny |z| would make 1/z = inf and 0*inf = NaN, which poisons
+    # the summed chi for the whole step; |z| > 1e-30 keeps inv_z an exact 0
+    # for every degenerate row (NaN z also fails the comparison)
     safe_z = jnp.abs(Xc[2]) > 1e-30
     inv_z = data.active * jnp.where(
         safe_z, 1.0 / jnp.where(safe_z, Xc[2], 1.0), 0.0
@@ -162,11 +79,11 @@ def _residual(kind: str, Xc, cam, meas, inv_z):
     raise ValueError(kind)
 
 
-def _chi_projective(kind, graph, data, rk, delta, pose_state=None):
+def _chi_projective(kind, graph, data, rk, delta):
     # no per-component masking: inactive rows produce FINITE garbage (inv_z
     # is zeroed at the source) and the trailing ``* data.active`` zeroes
     # their chi exactly; live rows are bit-identical to the masked form
-    R, Xc, cam, inv_z = _edge_inputs(graph, data, pose_state)
+    R, Xc, cam, inv_z = _edge_inputs(graph, data)
     e = _residual(kind, Xc, cam, data.meas, inv_z)
     if data.mask3 is not None:
         # merged mono+stereo set: mono rows (mask3 = 0) drop the third
@@ -177,9 +94,9 @@ def _chi_projective(kind, graph, data, rk, delta, pose_state=None):
 
 
 def _terms_projective(
-    kind, jac_fn, graph, data, rk, delta, with_chi=False, pose_state=None
+    kind, jac_fn, graph, data, rk, delta, with_chi=False
 ):
-    R, Xc, cam, inv_z = _edge_inputs(graph, data, pose_state)
+    R, Xc, cam, inv_z = _edge_inputs(graph, data)
     e = _residual(kind, Xc, cam, data.meas, inv_z)
     if data.mask3 is not None:
         e = e[:2] + (e[2] * data.mask3,)
@@ -211,15 +128,13 @@ class MonoModel:
     HAS_LANDMARK = True
 
     @staticmethod
-    def chi(graph, data, rk, delta, pose_state=None):
-        return _chi_projective(
-            "mono", graph, data, rk, delta, pose_state=pose_state
-        )
+    def chi(graph, data, rk, delta):
+        return _chi_projective("mono", graph, data, rk, delta)
 
     @staticmethod
-    def terms(graph, data, rk, delta, pose_state=None):
+    def terms(graph, data, rk, delta):
         return _terms_projective(
-            "mono", C.mono_jacobian_comps, graph, data, rk, delta, pose_state=pose_state
+            "mono", C.mono_jacobian_comps, graph, data, rk, delta
         )
 
     @staticmethod
@@ -234,15 +149,13 @@ class StereoModel:
     HAS_LANDMARK = True
 
     @staticmethod
-    def chi(graph, data, rk, delta, pose_state=None):
-        return _chi_projective(
-            "stereo", graph, data, rk, delta, pose_state=pose_state
-        )
+    def chi(graph, data, rk, delta):
+        return _chi_projective("stereo", graph, data, rk, delta)
 
     @staticmethod
-    def terms(graph, data, rk, delta, pose_state=None):
+    def terms(graph, data, rk, delta):
         return _terms_projective(
-            "stereo", C.stereo_jacobian_comps, graph, data, rk, delta, pose_state=pose_state
+            "stereo", C.stereo_jacobian_comps, graph, data, rk, delta
         )
 
     @staticmethod
@@ -259,15 +172,13 @@ class DepthModel:
     HAS_LANDMARK = True
 
     @staticmethod
-    def chi(graph, data, rk, delta, pose_state=None):
-        return _chi_projective(
-            "depth", graph, data, rk, delta, pose_state=pose_state
-        )
+    def chi(graph, data, rk, delta):
+        return _chi_projective("depth", graph, data, rk, delta)
 
     @staticmethod
-    def terms(graph, data, rk, delta, pose_state=None):
+    def terms(graph, data, rk, delta):
         return _terms_projective(
-            "depth", C.stereo_jacobian_comps, graph, data, rk, delta, pose_state=pose_state
+            "depth", C.stereo_jacobian_comps, graph, data, rk, delta
         )
 
     @staticmethod

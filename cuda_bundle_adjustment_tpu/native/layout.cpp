@@ -2,7 +2,7 @@
 //
 // C++ replacement for the host hot path of structure analysis
 // (solver/groups.py build_group_layout + the _take/renumber packing loops in
-// solver/block_solver.py initialize_from_arrays) -- the TPU-side analogue of
+// solver/block_solver.py initialize_from_arrays) -- the analogue of
 // the reference's host symbolic stage + arena edge packing
 // (/root/reference/src/sparse_block_matrix.cpp:63-156,
 //  /root/reference/src/optimisable_graph.hpp:475-572).
@@ -236,9 +236,7 @@ int64_t tba_layout_analyze(
             gid[i] = ngroups - 1;
         }
         // chunk width: ALWAYS gc_max, matching solver/groups.py _choose_gc
-        // (double-float kernel exactness requires >= 8-sublane values, and
-        // wide chunks minimise pair-product output rows — see the Python
-        // docstring for the full rationale; model_cost kept for reference)
+        // (model_cost kept for reference)
         std::vector<int64_t> gsz(ngroups, 0);
         for (int64_t i = 0; i < Ld; ++i)
         {

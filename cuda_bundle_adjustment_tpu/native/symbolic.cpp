@@ -1,4 +1,4 @@
-// Native symbolic-structure helpers for the TPU bundle-adjustment engine.
+// Native symbolic-structure helpers for the bundle-adjustment engine.
 //
 // Enumerates, per landmark, every ordered pair (i <= j) of its observing
 // both-free edges -- the multiply plan for the Schur complement

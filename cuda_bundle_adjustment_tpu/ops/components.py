@@ -1,11 +1,9 @@
 """Component-form (structure-of-arrays) math for the per-edge hot path.
 
-TPU tiles the last two array dimensions to (8, 128) lanes, so materialising
-per-edge tensors shaped ``[E, a, b]`` with small trailing dims wastes up to
-64x memory and bandwidth.  The hot path therefore computes with *components*:
-every per-edge quantity is a plain ``[E]`` vector (perfect lane layout) and
-rank-2 per-edge blocks exist only as flat ``[E, K]`` stacks created at the
-last moment before a segment reduction.
+The hot path computes with *components*: every per-edge quantity is a plain
+``[E]`` vector, so XLA fuses each chain of elementwise operations into one
+pass, and rank-2 per-edge blocks exist only as flat ``[E, K]`` stacks
+created at the last moment before a segment reduction.
 
 This is the same computation the reference performs per CUDA thread with
 unrolled scalar code (cuda_block_solver.cu:64-842) — vectorised over lanes

@@ -1,4 +1,4 @@
-"""Batched quaternion / SE(3) operations for the TPU bundle-adjustment engine.
+"""Batched quaternion / SE(3) operations for the bundle-adjustment engine.
 
 All functions are pure, statically shaped, and batched over a leading axis so
 XLA can vectorise them on the VPU.  Quaternions use the ``[x, y, z, w]`` layout
@@ -18,6 +18,7 @@ traces match bit-for-bit in structure:
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -180,7 +181,10 @@ def se3_exp(xi: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     V = eye + v1[..., None, None] * O1 + v2[..., None, None] * O2
 
     q = rotmat_to_quat(R)
-    t = jnp.einsum("...ij,...j->...i", V, upsilon)
+    # HIGHEST: an f32 contraction may otherwise run in TF32 on the GPU
+    t = jnp.einsum(
+        "...ij,...j->...i", V, upsilon, precision=jax.lax.Precision.HIGHEST
+    )
     return q, t
 
 

@@ -1,9 +1,8 @@
 """Small batched linear-algebra helpers for the block system.
 
-These are the TPU-native replacements for the reference's per-thread unrolled
-device math (/root/reference/src/cuda/cuda_block_solver.cu:64-234,639-669):
-everything is expressed as batched einsums so XLA maps the contraction onto
-the MXU/VPU instead of scalar code.
+These replace the reference's per-thread unrolled device math
+(reference src/cuda/cuda_block_solver.cu:64-234,639-669) with batched
+array operations.
 """
 
 from __future__ import annotations
@@ -47,21 +46,6 @@ def sym3x3_inv(A: jnp.ndarray) -> jnp.ndarray:
     return jnp.stack([row0, row1, row2], axis=-2)
 
 
-def jtj(J: jnp.ndarray, w: jnp.ndarray) -> jnp.ndarray:
-    """Weighted Gram blocks ``w * J^T J``: ``[..., M, N] -> [..., N, N]``."""
-    return w[..., None, None] * jnp.einsum("...mi,...mj->...ij", J, J)
-
-
-def jtj_cross(JA: jnp.ndarray, JB: jnp.ndarray, w: jnp.ndarray) -> jnp.ndarray:
-    """Weighted cross blocks ``w * JA^T JB``."""
-    return w[..., None, None] * jnp.einsum("...mi,...mj->...ij", JA, JB)
-
-
-def jte(J: jnp.ndarray, e: jnp.ndarray, w: jnp.ndarray) -> jnp.ndarray:
-    """Weighted gradient blocks ``w * J^T e``: ``[..., M, N],[..., M] -> [..., N]``."""
-    return w[..., None] * jnp.einsum("...mi,...m->...i", J, e)
-
-
 def add_lambda(H: jnp.ndarray, lam: jnp.ndarray) -> jnp.ndarray:
     """Add ``lam`` to the diagonal of each block of ``H [..., D, D]``."""
     D = H.shape[-1]
@@ -74,8 +58,8 @@ def block_diag_solve(H: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
     Used for the pose-only (no-Schur) path where Hpp is block-diagonal: the
     reference densifies Hpp and runs a dense cuSOLVER factorization
-    (/root/reference/src/cuda_linear_solver.cpp:85-107); per-block Cholesky is
-    the TPU-native equivalent with the identical solution.
+    (reference src/cuda_linear_solver.cpp:85-107); per-block Cholesky
+    gives the identical solution.
     """
     from jax.scipy.linalg import solve_triangular
 

@@ -9,12 +9,12 @@ distributed Schur reduction:
 * landmarks are SHARDED; every edge lives on its landmark's shard, so
   Hll/bl/Hpl and the per-landmark Schur pair products are shard-local;
 * per-shard partial Hpp/bp/bsc/Hsc-blocks are combined with ``psum`` over the
-  mesh (rides ICI), after which every device holds the replicated reduced
-  system in BLOCK-SPARSE form;
+  mesh (an all-reduce over NVLink on GPUs), after which every device holds
+  the replicated reduced system in BLOCK-SPARSE form;
 * the pose solve is chunked-block-Jacobi preconditioned CG on the flat
-  blocks — O(nnz) memory and batched-MXU preconditioner factorisation, so
-  the BASELINE city-scale config (~10k poses / 1M landmarks) fits: the old
-  dense ``[Pa, Pa, 6, 6]`` replicated solve was ~29 GB/device at 10k poses;
+  blocks — O(nnz) memory and batched preconditioner factorisation, so the
+  BASELINE city-scale config (~10k poses / 1M landmarks) fits: a dense
+  ``[Pa, Pa, 6, 6]`` replicated solve would be ~29 GB/device at 10k poses;
 * the landmark back-substitution is embarrassingly shard-local.
 
 Two entry points:
@@ -96,18 +96,12 @@ class ShardedProblem(NamedTuple):
     # 0 = feature off, matching EdgeSet.setOutlierThreshold semantics,
     # /root/reference/src/optimisable_graph.hpp:415-419)
     outlier_threshold: float = 0.0
-    # replicated band direct solve (solver/block_solver.BandMeta, static):
-    # city-scale trajectory graphs keep a narrow Hsc band even at 10k+ poses,
-    # where the f32 Pallas band factor + f64 refinement (the single-chip fast
-    # path) beats PCG per trial; None -> chunked block-Jacobi PCG
-    band: object = None
 
 
 def shard_problem(
     problem,
     num_shards: int,
     outlier_threshold: float = 0.0,
-    pose_solver: str = "pcg",
 ) -> ShardedProblem:
     """Partition a :class:`~..io.synthetic.BAProblem` (or a
     :class:`~..io.synthetic.MixedBAProblem` — mono+stereo merge onto the
@@ -222,32 +216,8 @@ def shard_problem(
     tri_ej[t_slot] = (tri_slot_j % Es)[t_order]
     tri_k[t_slot] = s.tri_k[t_order]
 
-    # replicated pose solve selection, mirroring the single-chip gate
-    # (block_solver.build_structure band eligibility): trajectory-like
-    # patterns with a narrow band after ordering take the f32 band factor +
-    # f64 refinement; wide patterns take block-Jacobi PCG.
-    # ``pose_solver``: "pcg" (default — runs everywhere, incl. the CPU
-    # virtual-mesh tests) | "band" (requires eligibility; Pallas kernels, so
-    # TPU or interpret mode) | "auto" (band when eligible, else pcg).
-    from ..solver.block_solver import BandMeta
-
-    band_meta = None
-    if pose_solver not in ("auto", "band", "pcg"):
-        raise ValueError(f"unknown pose_solver {pose_solver!r}")
-    if pose_solver in ("auto", "band") and s.nnz_blocks:
-        bw = int(np.max(s.blk_col.astype(np.int64) - s.blk_row))
-        sb = -(-(bw + 1) // 8) * 8
-        vmem = (Pa + sb) * sb * 512
-        if bw + 1 <= 48 and vmem <= 11 * 2**20:
-            band_meta = BandMeta(bw=bw, sb=sb)
-        elif pose_solver == "band":
-            raise ValueError(
-                f"pose_solver='band' but the Hsc bandwidth {bw} exceeds the "
-                "whole-band-in-VMEM budget; use 'auto' or 'pcg'"
-            )
-    pc = None if band_meta is not None else build_pcg_plan(
-        s.blk_row, s.blk_col, Pa
-    )
+    # replicated pose solve: block-Jacobi PCG on the flat Hsc blocks
+    pc = build_pcg_plan(s.blk_row, s.blk_col, Pa)
 
     return ShardedProblem(
         pose_q=jnp.asarray(problem.pose_q),
@@ -275,7 +245,6 @@ def shard_problem(
         pc=pc,
         mask3=mask3,
         outlier_threshold=float(outlier_threshold),
-        band=band_meta,
     )
 
 
@@ -286,10 +255,6 @@ def shard_problem(
 
 class _EdgeData:
     """PackedEdges-shaped adapter for the model stage functions."""
-
-    pose_xp = None
-    lm_xp = None
-    lm_slot = None
 
     def __init__(self, sp: ShardedProblem, meas, omega, cam, pose_idx,
                  lm_local, active, mask3=None):
@@ -355,21 +320,9 @@ def _make_shard_fns(mesh: Mesh, sp: ShardedProblem, rk: int, delta: float):
         bsc = bp - bsc_sum
         blocks = (-blocks_sum).at[diag_pos].add(Hpp_d.reshape(Pa, 36))
 
-        if sp.band is not None:
-            # replicated band direct solve: the same f32 Pallas band factor
-            # + f64 refinement as the single-chip fast path
-            # (block_solver._solve_reduced_blocks band branch); operands are
-            # replicated so every device factors identically
-            from ..solver.block_solver import _solve_reduced_blocks
-
-            xp, success = _solve_reduced_blocks(
-                blocks, blk_row, blk_col, diag_pos, bsc, Pa,
-                mixed=True, band=sp.band, pcg=None,
-            )
-        else:
-            xp, success = solve_blocks_pcg(
-                blocks, bsc, Pa, blk_row, blk_col, diag_pos, pc
-            )
+        xp, success = solve_blocks_pcg(
+            blocks, bsc, Pa, blk_row, blk_col, diag_pos, pc
+        )
 
         # shard-local landmark back-substitution
         xp_e = xp[jnp.minimum(ed.pose_idx, Pa - 1)]

@@ -1,10 +1,9 @@
 """Co-visibility group layout for the Schur product (host symbolic stage).
 
 The Schur triple product ``Hsc[s,t] -= sum_l W[e_{l,s}] Hpl[e_{l,t}]^T``
-(reference: cuda_block_solver.cu:1327-1345) is the hottest stage.  The
-generic plan (``symbolic.py`` triples + bucketed reductions) pays TPU's
-per-row gather cost on ~2 gathers x T ~ 1.7M rows.  This module removes the
-gathers entirely by choosing the *edge storage order* at build time:
+(reference: cuda_block_solver.cu:1327-1345) is the hottest stage.  This
+module chooses the *edge storage order* at build time so that the
+landmark-side reductions need no gather at all:
 
 * landmarks are classed by their number of both-free observations ``d``
   (degree), grouped by their exact observing pose tuple (real SLAM maps have
@@ -19,13 +18,11 @@ gathers entirely by choosing the *edge storage order* at build time:
   reads are contiguous too (dummy padding slots stay inert: their edges have
   ``active = omega = 0`` and their lambda-damped Hll inverts to ``I/lam``);
 * for each (class, pair-of-slots, chunk) the pair product summed over the
-  chunk members is ONE output row -> the runtime pair-product kernel
-  (pallas/pairprod.py) reduces ``T`` triple rows to ``R ~ T/6`` output rows
-  with dense, double-float in-VMEM arithmetic.
+  chunk members is ONE output row (``out_key``); the pose-side reductions
+  pre-sum chunk members, which share their slot's pose (``chunk_pose``).
 
-The Hsc block pattern and the legacy triple plan (CPU fallback) still come
-from :mod:`.symbolic` applied to the permuted indices, so both runtime paths
-share one pattern numbering.
+The Hsc block pattern and the triple plan come from :mod:`.symbolic`
+applied to the permuted indices.
 """
 
 from __future__ import annotations
@@ -39,7 +36,7 @@ class ClassMeta(NamedTuple):
     """Static (hashable) per-degree-class constants."""
 
     d: int  # both-free observations per landmark
-    nc_pad: int  # chunk count padded to the kernel tile
+    nc_pad: int  # chunk count padded to a multiple of tile_n
     e_start: int  # first edge row of this class's region
     lm_start: int  # first landmark position of this class
     npairs: int  # d * (d + 1) // 2
@@ -56,17 +53,13 @@ class GroupLayoutMeta(NamedTuple):
     e_total: int  # class rows + extras rows
     la_pad: int  # landmark positions incl. dummies and the d=0 region
     n_extras: int  # edges outside the class regions (single-free edges)
-    n_out: int  # total flat kernel output rows
-    use_kernel: bool = False  # run the Pallas pair-product kernel (TPU)
-    terms_kernel: bool = False  # run the fused linearisation kernel
-    # (pallas/terms.py); implies SystemBlocks.Hpl is the packed float-float
-    # component-major [36, e_total] f32 form — every consumer keys on this
+    n_out: int  # total flat pair-output rows
 
 
 # GroupLayoutMeta rides inside the (traced) SchurPlan pytree, but every field
 # is compile-time constant: register it as a LEAFLESS pytree whose content is
 # aux data, so jit keys the compiled program on it without tracing the ints
-# (same trick as pallas/onehot.py's ExpandPlan).
+# (same trick as solver/pcg.py's PcgPlan).
 import jax.tree_util as _jtu
 
 _jtu.register_pytree_node(
@@ -93,25 +86,10 @@ class GroupLayout(NamedTuple):
 
 
 def _choose_gc(gsizes: np.ndarray, d: int, gc_max: int, tile_n: int) -> int:
-    """Chunk width per class: ALWAYS ``gc_max`` (8).
-
-    A per-class cost model once picked from {1, 2, 4, 8} (round 2: padded
-    edge rows ~35 ns/iter, kernel output rows ~63 ns/iter), but it is
-    obsolete twice over:
-
-    1. **Exactness**: the double-float Pallas kernels lose their two-sum
-       compensation on a sparse ~0.02% of entries whenever values have
-       fewer than 8 sublanes (gc < 8 here; measured on hardware: the
-       pair-product kernel's longdouble-oracle error degrades 3e-14 ->
-       2.5e-9 at gc=1, tools/tpu_parity.py).  gc = 8 keeps every kernel
-       value at the native (8, 128) tile and restores exactness.
-    2. **Perf**: the fused linearisation/chi kernels cut per-edge cost
-       ~40x below the model's 35 ns while per-OUTPUT-row cost (the Hsc
-       assembly gather, ~60 ns/row) is unchanged — wide chunks now win on
-       both terms (fewer chunks => fewer pair-product output rows), and
-       padding no longer costs upload bytes (compact measurement upload,
-       device-derived indices).
-    """
+    """Chunk width per class: ALWAYS ``gc_max`` (8).  Wide chunks mean
+    fewer chunk rows in the pose-side pre-sums; the native layout code
+    (native/layout.cpp) uses the same constant, so the two stay
+    bit-identical."""
     return gc_max
 
 

@@ -2,12 +2,10 @@
 
 Plays the role of the reference's METIS fill-reducing reordering
 (`cusolverSpXcsrmetisndHost`, /root/reference/src/cholesky.hpp:292-297):
-the TPU solver's fast pose solve is the whole-band-in-VMEM Pallas Cholesky
-(pallas/bandchol.py), which needs a small Hsc block bandwidth.  Trajectory
-graphs have it natively; graphs with loop closures do not — RCM recovers a
-banded order whenever one exists.  When it does not (long-range co-visibility
-everywhere), the solver falls to preconditioned CG (solver/pcg.py), never to
-the O(Pa^2)-memory dense build.
+it gives the reduced camera system a small Hsc block bandwidth whenever one
+exists.  Trajectory graphs have it natively; graphs with loop closures do
+not — RCM recovers a banded order, which keeps the block-Jacobi chunks of
+the PCG solve (solver/pcg.py) close to the coupling they approximate.
 """
 
 from __future__ import annotations

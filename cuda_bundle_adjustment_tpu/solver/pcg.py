@@ -1,8 +1,8 @@
 """Chunked-block-Jacobi preconditioned CG on flat Hsc blocks.
 
-The scalable pose solve for reduced camera systems that are neither banded
-(pallas/bandchol.py) nor small enough to densify: O(nnz) memory, batched-MXU
-preconditioner factorisation, no sequential factorization at all.  Plays the
+The scalable pose solve for reduced camera systems too large to densify
+(block_solver.reduced_solver_route): O(nnz) memory, batched preconditioner
+factorisation, no sequential factorization at all.  Plays the
 role of the reference's general sparse Cholesky path (METIS ordering +
 cusolverSp csrchol, /root/reference/src/cholesky.hpp:292-297,
 cuda_linear_solver.cpp:27-42) for graphs whose bandwidth cannot be rescued
@@ -128,8 +128,11 @@ def solve_blocks_pcg(
     # symmetric Jacobi scaling (same rationale as the dense/band paths)
     diag = blocks[diag_pos][:, jnp.array([0, 7, 14, 21, 28, 35])]  # [Pa,6]
     s = 1.0 / jnp.sqrt(jnp.maximum(diag, 1e-300))
-    bl_s = blocks * (s[blk_row][:, :, None] * s[blk_col][:, None, :]).reshape(
-        nnz, 36
+    # materialised once (barrier): every CG iteration's matvec gathers it
+    bl_s = jax.lax.optimization_barrier(
+        blocks * (s[blk_row][:, :, None] * s[blk_col][:, None, :]).reshape(
+            nnz, 36
+        )
     )
     b = (bsc * s).reshape(-1)
 
@@ -160,10 +163,10 @@ def solve_blocks_pcg(
     offm = (blk_row != blk_col).astype(dtype)[:, None]
 
     def matvec(xv):
-        # scatter-free bucketed reduction when the caller already built the
-        # blk_row/blk_col plans (single-chip build_structure does; scatters
-        # cost ~115 ns/row vs ~43 for the planned gather-reduce, and this
-        # runs up to ``maxiter`` times per trial)
+        # scatter-free bucketed reduction (fixed summation order) when the
+        # caller built the blk_row/blk_col plans (single-device
+        # build_structure does); the sharded path's segment_sum is a
+        # scatter-add, atomic on the GPU
         x2 = xv.reshape(Pa, 6)
         if row_plan is not None:
             from .segments import reduce_rows

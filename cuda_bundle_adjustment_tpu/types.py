@@ -10,7 +10,7 @@ import jax.numpy as jnp
 class PackedEdges(NamedTuple):
     """Struct-of-arrays packed edge set (device resident, statically shaped).
 
-    The TPU-native analogue of the reference's single-arena edge payload
+    The static-shape analogue of the reference's single-arena edge payload
     (/root/reference/src/optimisable_graph.hpp:475-601): measurements, vertex
     indices, weights and camera intrinsics for every *packed* edge (edges whose
     vertices are all fixed are dropped at pack time, like the reference's
@@ -37,12 +37,6 @@ class PackedEdges(NamedTuple):
     # is the Hpl block (single-free contributions drop via index range in the
     # reductions), so one combined mask replaces two (HBM + loop-copy diet)
     active: jnp.ndarray  # [E] float mask: 1.0 active, 0.0 outlier
-    # Pallas one-hot expansion plans for the per-edge state gathers
-    # (q/t by pose_idx, Xw by lm_idx); None -> plain XLA gathers (CPU path)
-    pose_xp: object = None  # Optional[pallas.onehot.ExpandPlan]
-    lm_xp: object = None
-    lm_slot: object = None  # Optional[groups.GroupLayoutMeta]: landmark state
-    # reads become d stacked slice copies per class (no gather at all)
     mask3: object = None  # Optional [E]: 1.0 = stereo row, 0.0 = mono row.
     # A merged mono+stereo edge set runs the stereo model with the third
     # residual component and Jacobian row masked per edge — the masked math
@@ -68,10 +62,9 @@ class GraphArrays(NamedTuple):
 class SystemBlocks(NamedTuple):
     """The assembled block system for one LM iteration (undamped).
 
-    Large per-landmark / per-edge blocks are stored FLAT (row-major last axis)
-    because TPU tiling pads the last two dims to (8, 128): ``[N, 3, 3]``
-    arrays would waste ~40x memory, ``[N, 9]`` only ~3x, and the flat algebra
-    in ops/components.py never re-expands them.
+    Large per-landmark / per-edge blocks are stored FLAT (row-major last
+    axis, ``[N, 9]`` rather than ``[N, 3, 3]``); the flat algebra in
+    ops/components.py never re-expands them.
     """
 
     Hpp: jnp.ndarray  # [Pa, 6, 6] (small: Pa ~ 1e3)
@@ -79,9 +72,3 @@ class SystemBlocks(NamedTuple):
     Hll: Optional[jnp.ndarray]  # [La, 9] flat symmetric blocks or None
     bl: Optional[jnp.ndarray]  # [La, 3] or None
     Hpl: Optional[jnp.ndarray]  # [Eba, 18] flat 6x3 per-edge blocks or None
-    # component-major copy of (Hll | bl) — [12, La] — carried only on the
-    # terms-kernel path, where the per-trial landmark inversion runs as the
-    # Pallas lminv kernel over lanes (the [La, k] row-major forms tile their
-    # 12-wide last axis to 128 lanes, so every per-trial f64 elementwise op
-    # on them ran at <10% lane utilisation with loop-copy traffic)
-    lm_cm: Optional[jnp.ndarray] = None

@@ -5,7 +5,7 @@ The role of g2o in the reference's comparison sample
 CPU implementation of the same math used for chi2-trace and RMSE parity
 checks, both in the test suite and in samples/sample_comparison_with_cpu.py.
 
-Independent oracle for the TPU solver: same math (residuals, g2o-convention
+Independent oracle for the device solver: same math (residuals, g2o-convention
 Jacobians, robust kernels, damping, Schur elimination via a full dense solve,
 SE3-exp update, gain-ratio control flow), written with straightforward dense
 linear algebra so any indexing/masking bug in the packed solver shows up as a

@@ -2,7 +2,7 @@
 (/root/reference/src/block_solver.cpp:470-488).
 
 Timers call ``block_until_ready`` on a representative array before reading the
-clock — the TPU equivalent of the reference's CUDA-event stage brackets
+clock — the equivalent of the reference's CUDA-event stage brackets
 (cuda_device.cpp:284-292).  ``TimeProfile`` is a plain dict keyed by the
 human-readable stage names.
 """

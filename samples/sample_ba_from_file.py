@@ -1,4 +1,4 @@
-"""TPU equivalent of the reference's ``sample_ba_from_file``.
+"""JAX equivalent of the reference's ``sample_ba_from_file``.
 
 Loads a BA graph (OpenCV JSON FileStorage layout, the reference's input
 format: /root/reference/samples/sample_ba_from_file/main.cpp:78-165) or a
@@ -65,7 +65,7 @@ def main(argv: list[str]) -> int:
     trace = [s.chi2 for s in opt.batch_statistics().get()]
     elapsed = time.perf_counter() - t0
 
-    print(f"=== TPU Bundle Adjustment: {niter} iterations ===\n")
+    print(f"=== Bundle Adjustment: {niter} iterations ===\n")
     print(f"num poses      : {opt.solver.P}")
     print(f"num landmarks  : {opt.solver.L}")
     print(f"num edges      : {opt.solver.nedges()}")

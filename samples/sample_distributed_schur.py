@@ -3,14 +3,12 @@
 New scope relative to the single-GPU reference (SURVEY.md §2.3): shards
 edges and landmarks over an N-device mesh, computes per-shard Schur
 contributions locally, reduces the (small, replicated) camera system with a
-``psum`` over ICI, solves it on every device, and back-substitutes the
+``psum`` over the mesh, solves it on every device, and back-substitutes the
 landmark shards locally — the standard distributed-Schur decomposition
 mapped onto XLA collectives via ``shard_map``.
 
-Runs on real devices when available; otherwise set
-``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu``
-for a virtual 8-device CPU mesh (what this script defaults to when it
-detects a single device).
+Runs on a virtual N-device CPU mesh by default; ``TBA_REAL_MESH=1`` runs on
+the default backend's devices (e.g. the GPUs of one host).
 
 Usage:
     python samples/sample_distributed_schur.py [num_devices] [niterations]
@@ -36,8 +34,7 @@ def main(argv: list[str]) -> int:
     )
     import jax
 
-    # force the CPU backend unless the default platform already offers a
-    # big-enough mesh (on a real pod slice it will)
+    # force the CPU backend unless asked for the real devices
     if os.environ.get("TBA_REAL_MESH", "") != "1":
         jax.config.update("jax_platforms", "cpu")
 
@@ -76,9 +73,9 @@ def main(argv: list[str]) -> int:
         # numbers, not only convergence).  HONEST FRAMING: this host exposes
         # ONE physical core, so the D virtual CPU devices timeshare it —
         # wall time here measures the sharded program's TOTAL work +
-        # collective overhead (the D=1 ratio), never parallel speedup.  On a
-        # real pod the same program divides the edge/landmark work by D and
-        # the psum rides ICI; the design-relevant scalability numbers are
+        # collective overhead (the D=1 ratio), never parallel speedup.  On
+        # real devices the same program divides the edge/landmark work by D;
+        # the design-relevant scalability numbers are
         # (a) how flat total work stays as D grows and (b) the bytes each
         # device must reduce per iteration, both printed below.
         import os as _os
@@ -88,37 +85,20 @@ def main(argv: list[str]) -> int:
         )
 
         ncores = _os.cpu_count() or 1
-        # --band: replicated band direct pose solve (pose_solver="auto";
-        # Pallas kernels, so CPU runs them in interpret mode here)
-        pose_solver = "pcg"
-        if "--band" in argv:
-            pose_solver = "auto"
-            if jax.default_backend() == "cpu":
-                import cuda_bundle_adjustment_tpu.pallas.bandchol as _bc
-
-                for _nm in ("band_factor", "band_factor2", "band_solve"):
-                    _orig = getattr(_bc, _nm)
-                    setattr(
-                        _bc, _nm,
-                        (lambda o: lambda *a, **k: o(
-                            *a, **{**k, "interpret": True}
-                        ))(_orig),
-                    )
         print(
             f"sharded-program cost at D=1/2/4/8 ({niter} LM iterations per "
-            f"run; pose_solver={pose_solver}; host has {ncores} physical "
+            f"run; host has {ncores} physical "
             f"core(s) — wall time measures total work + collective "
             f"overhead, NOT parallel speedup)"
         )
         print(f"{'D':>3s} {'E/shard':>9s} {'L/shard':>9s} {'total_s':>8s} "
-              f"{'s/iter':>8s} {'work_vs_D1':>10s} {'psum_MB/it':>10s} "
-              f"{'solve':>5s}")
+              f"{'s/iter':>8s} {'work_vs_D1':>10s} {'psum_MB/it':>10s}")
         base = None
         for D in (1, 2, 4, 8):
             if D > want:
                 break
             mesh = Mesh(np.array(jax.devices()[:D]), ("d",))
-            sp = shard_problem(problem, D, pose_solver=pose_solver)
+            sp = shard_problem(problem, D)
             # per-iteration all-reduce payload: the block-sparse camera
             # system Hsc [nnz,36] + bsc [Pa,6] + chi scalars (f64)
             psum_mb = (
@@ -139,8 +119,7 @@ def main(argv: list[str]) -> int:
                 base = dt
             print(f"{D:3d} {sp.edges_per_shard:9d} {sp.lms_per_shard:9d} "
                   f"{dt:8.2f} {per_iter:8.3f} {dt / base:10.2f} "
-                  f"{psum_mb:10.2f} "
-                  f"{'band' if sp.band is not None else 'pcg':>5s}")
+                  f"{psum_mb:10.2f}")
             assert float(trace[max(int(n_done) - 1, 0)]) < float(trace[0])
         print("SCALING OK")
         return 0

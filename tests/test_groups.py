@@ -1,12 +1,9 @@
-"""Co-visibility group layout (solver/groups.py) + pair-product kernel tests."""
+"""Co-visibility group layout (solver/groups.py) tests."""
 
 import numpy as np
-import jax.numpy as jnp
-import pytest
 
 from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem
 from cuda_bundle_adjustment_tpu.io.synthetic import make_ba_problem
-from cuda_bundle_adjustment_tpu.solver import block_solver as bs
 from cuda_bundle_adjustment_tpu.solver.groups import build_group_layout
 
 
@@ -42,55 +39,6 @@ def test_layout_invariants():
     assert np.all(ok // Pa <= ok % Pa)
 
 
-def test_kernel_path_matches_tri_path():
-    """Grouped pair-product kernel (interpret mode on CPU) against the
-    bucketed triple path.  Interpret mode loses the double-float compensation
-    (XLA excess precision re-simplifies two-sum; exactness is TPU-only and
-    covered by the CPU-parity sample), so the comparison tolerance is f32."""
-    problem = make_ba_problem(
-        num_poses=16, num_landmarks=120, mean_obs_per_landmark=4.0,
-        kind="mono", seed=13,
-    )
-    opt = optimizer_from_problem(problem)
-    solver = opt.solver
-    solver.build_structure()
-    assert solver.group_layout is not None
-    plan = solver.plan
-    assert plan.tri_plan is not None  # CPU build keeps the fallback
-
-    _, sys = solver.head()
-    lam = jnp.asarray(1e-3, solver.dtype)
-    ref_blocks, ref_bsc, _ = bs.schur_reduce(
-        sys, lam, plan, solver.Pa, solver.La, solver.schur.nnz_blocks
-    )
-
-    import cuda_bundle_adjustment_tpu.pallas.pairprod as pp
-
-    kplan = plan._replace(layout=plan.layout._replace(use_kernel=True))
-    orig = pp.schur_pair_rows_v2
-
-    def interp_rows(Hpl, invHll, plan_, interpret=True):
-        return orig(Hpl, invHll, plan_, interpret=True)
-
-    pp.schur_pair_rows_v2 = interp_rows
-    try:
-        got_blocks, got_bsc, _ = bs.schur_reduce(
-            sys, lam, kplan, solver.Pa, solver.La, solver.schur.nnz_blocks
-        )
-    finally:
-        pp.schur_pair_rows_v2 = orig
-
-    scale = float(jnp.max(jnp.abs(ref_blocks)))
-    np.testing.assert_allclose(
-        np.asarray(got_blocks), np.asarray(ref_blocks), atol=2e-5 * scale
-    )
-    # bsc re-associates as Hpl (invHll bl) on the kernel path
-    bscale = float(jnp.max(jnp.abs(ref_bsc)))
-    np.testing.assert_allclose(
-        np.asarray(got_bsc), np.asarray(ref_bsc), atol=1e-9 * bscale
-    )
-
-
 def test_result_landmarks_round_trip():
     problem = make_ba_problem(
         num_poses=10, num_landmarks=80, mean_obs_per_landmark=4.0,
@@ -105,8 +53,8 @@ def test_result_landmarks_round_trip():
 
 
 def test_pattern_from_layout_matches_symbolic():
-    """The kernel path derives the Hsc pattern from group pair keys instead
-    of triple enumeration; both must agree exactly."""
+    """The layout's group pair keys (``out_key``) describe exactly the Hsc
+    pattern that triple enumeration finds."""
     from cuda_bundle_adjustment_tpu.solver.symbolic import build_schur_structure
 
     problem = make_ba_problem(

@@ -109,9 +109,8 @@ def _packed_arrays(problem, monkeypatch, force_numpy, **kwargs):
 
 
 def test_native_index_matches_unique_searchsorted():
-    """The use_kernel Hsc-pattern path (build_structure) swaps np.unique +
-    searchsorted for native_index's counting pass; the branch itself only
-    runs on TPU, so pin the equivalence here on a real layout's out_key."""
+    """native_index's counting pass equals np.unique + searchsorted on a
+    real layout's out_key (the Hsc pattern from the group pair keys)."""
     from cuda_bundle_adjustment_tpu.solver.native_symbolic import native_index
 
     p = make_ba_problem(

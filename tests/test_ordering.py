@@ -48,11 +48,14 @@ def test_plan_keeps_identity_for_banded_graphs():
     assert perm is None  # trajectory order is already banded
 
 
-def test_loop_closure_graph_solves_without_dense():
-    """The VERDICT acceptance shape: random long-range co-visibility defeats
-    any banded order; the solver must engage PCG, never the dense build."""
+def test_loop_closure_graph_solves_without_dense(monkeypatch):
+    """Random long-range co-visibility defeats any banded order; at or above
+    PCG_MIN_POSES the solver must engage PCG, never the dense build."""
+    import cuda_bundle_adjustment_tpu.solver.block_solver as bs
     from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem
     from cuda_bundle_adjustment_tpu.io.synthetic import make_loop_closure_problem
+
+    monkeypatch.setattr(bs, "PCG_MIN_POSES", 1024)
 
     p = make_loop_closure_problem(num_poses=1100, num_landmarks=6000, seed=2)
     opt = optimizer_from_problem(p)

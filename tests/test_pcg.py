@@ -114,7 +114,6 @@ def test_pcg_path_chi2_trace_matches_dense_oracle(monkeypatch):
 
     opt, p = _pcg_loop_closure_opt(monkeypatch)
     assert opt.solver.plan.pcg is not None, "PCG fallback did not engage"
-    assert opt.solver.plan.band is None
     opt.optimize(6)
     got = [s.chi2 for s in opt.batch_statistics().get()]
 
@@ -201,7 +200,6 @@ def test_pcg_path_matches_dense_oracle_1000_poses(monkeypatch):
     opt.solver.build_structure()
     assert opt.solver.plan.pcg is not None
     assert opt.solver.plan.pcg.maxiter == gold["cg_maxiter"]
-    assert opt.solver.plan.band is None
     opt.optimize(gold["niterations"])
     got = [s.chi2 for s in opt.batch_statistics().get()]
 
