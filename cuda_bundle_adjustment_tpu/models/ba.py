@@ -24,6 +24,7 @@ Functional parity with the reference kernels:
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..graph import BaseEdge, EdgeSet
@@ -32,23 +33,43 @@ from ..ops.robust import robust_derivative, robustify
 from ..types import GraphArrays, PackedEdges
 
 
-def _pose_state_table(graph: GraphArrays):
-    """[P, 12] per-pose state: translation + rotation matrix (row-major).
+def _pose_state_table(graph: GraphArrays, dtype):
+    """[P, 12] per-pose state in ``dtype``: translation + rotation matrix
+    (row-major).
 
     Rotations are computed once per POSE here — not per edge — saving ~24
     ops per edge in both the chi and quadratic-form passes (the reference
     evaluates R(q) per edge, cuda_block_solver.cu:449-478).
     """
-    q = graph.q
+    q = graph.q.astype(dtype)
     R = C.rotmat_comps(q[:, 0], q[:, 1], q[:, 2], q[:, 3])
-    return jnp.concatenate([graph.t] + [r[:, None] for r in R], axis=1)
+    return jnp.concatenate([graph.t.astype(dtype)] + [r[:, None] for r in R],
+                           axis=1)
 
 
-def _edge_inputs(graph: GraphArrays, data: PackedEdges):
-    """Gather per-edge component vectors (all [E]) from the small state
-    tables: row gathers of the ``[12, P]`` pose table and the landmarks."""
-    sT = _pose_state_table(graph).T  # [12, P] — tiny transpose
-    XT = graph.Xw.T
+def _geometry_dtype(dtype):
+    """The precision of the per-edge geometry: f64 whenever JAX has it.
+
+    ``R Xw + t`` cancels (world coordinates of hundreds of metres, camera
+    depths of tens), and so does ``proj - meas``: in f32 the rounding of
+    R, of each product and of each sum lands on the small result, about
+    1e-4 of a gradient at KITTI width, and XLA:CPU and XLA:GPU round
+    differently there (one contracts the multiply-adds into FMAs, the
+    other does not).  Formed in f64 from the f32 state and rounded once,
+    the camera-frame point, 1/z and the residual are the correctly rounded
+    f32 values on every backend; the Jacobians and quadratic forms, which
+    do not cancel, stay in ``dtype``."""
+    return jnp.float64 if jax.config.jax_enable_x64 else dtype
+
+
+def _edge_geometry(kind: str, graph: GraphArrays, data: PackedEdges):
+    """Per-edge ``(R, Xc, cam, inv_z, e)`` component vectors (all [E], in
+    the graph's dtype) from row gathers of the ``[12, P]`` pose table and
+    the landmarks; see :func:`_geometry_dtype` for the precision."""
+    dtype = graph.q.dtype
+    wide = _geometry_dtype(dtype)
+    sT = _pose_state_table(graph, wide).T  # [12, P] — tiny transpose
+    XT = graph.Xw.T.astype(wide)
     pi, li = data.pose_idx, data.lm_idx
     t = tuple(sT[i][pi] for i in range(3))
     R = tuple(sT[3 + i][pi] for i in range(9))
@@ -66,7 +87,9 @@ def _edge_inputs(graph: GraphArrays, data: PackedEdges):
     inv_z = data.active * jnp.where(
         safe_z, 1.0 / jnp.where(safe_z, Xc[2], 1.0), 0.0
     )
-    return R, Xc, cam, inv_z
+    e = _residual(kind, Xc, cam, data.meas, inv_z)
+    narrow = lambda cs: tuple(c.astype(dtype) for c in cs)  # noqa: E731
+    return (narrow(R), narrow(Xc), cam, inv_z.astype(dtype), narrow(e))
 
 
 def _residual(kind: str, Xc, cam, meas, inv_z):
@@ -83,8 +106,7 @@ def _chi_projective(kind, graph, data, rk, delta):
     # no per-component masking: inactive rows produce FINITE garbage (inv_z
     # is zeroed at the source) and the trailing ``* data.active`` zeroes
     # their chi exactly; live rows are bit-identical to the masked form
-    R, Xc, cam, inv_z = _edge_inputs(graph, data)
-    e = _residual(kind, Xc, cam, data.meas, inv_z)
+    _, _, _, _, e = _edge_geometry(kind, graph, data)
     if data.mask3 is not None:
         # merged mono+stereo set: mono rows (mask3 = 0) drop the third
         # residual component, which makes the stereo math EXACTLY mono's
@@ -96,13 +118,12 @@ def _chi_projective(kind, graph, data, rk, delta):
 def _terms_projective(
     kind, jac_fn, graph, data, rk, delta, with_chi=False
 ):
-    R, Xc, cam, inv_z = _edge_inputs(graph, data)
-    e = _residual(kind, Xc, cam, data.meas, inv_z)
+    R, Xc, cam, inv_z, e = _edge_geometry(kind, graph, data)
     if data.mask3 is not None:
         e = e[:2] + (e[2] * data.mask3,)
     x = data.omega * sum(c * c for c in e)
     # ``* active`` in w zeroes every stack contribution of inactive rows
-    # (their e/x are finite garbage, never NaN — see _edge_inputs)
+    # (their e/x are finite garbage, never NaN — see _edge_geometry)
     w = data.omega * robust_derivative(rk, delta, x) * data.active
     JP, JL = jac_fn(Xc, R, cam, inv_z)
     if data.mask3 is not None:

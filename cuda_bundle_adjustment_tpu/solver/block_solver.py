@@ -41,11 +41,10 @@ from .symbolic import SchurStructure, build_schur_structure
 
 # Pose count from which the reduced camera system solves with block-Jacobi
 # PCG instead of the dense Cholesky (module-level so tests can force the PCG
-# path on small, oracle-checkable graphs).  On an H100 the dense route won
-# end to end at both measured sizes (KITTI-07, Pa=247; KITTI-00, Pa=1321:
-# one fused optimize(10) 2.1x faster than PCG); scaling the measured
-# per-trial costs (dense ~Pa^3, PCG ~Pa) puts the crossover near Pa=2200
-# (PERF.md).
+# path on small, oracle-checkable graphs).  Set from end-to-end optimize(10)
+# runs of KITTI-00-density graphs on an H100 (PERF.md): dense was faster at
+# Pa=1321 and Pa=1999, PCG at Pa=2599, so the crossover lies between 1999
+# and 2599; where inside that interval is not measured.
 PCG_MIN_POSES = 2048
 # The dense route holds about three [6*Pa, 6*Pa] matrices in the factor
 # precision (the block scatter, the scalar operand and its factor); it may
@@ -1001,9 +1000,10 @@ class BlockSolver:
 
     def __init__(self, options):
         self.options = options
-        if options.dtype == "float64" and not jax.config.jax_enable_x64:
-            # the f64 default is meaningless without x64; opt in on behalf of
-            # the user (JAX would otherwise silently truncate to f32)
+        if not jax.config.jax_enable_x64:
+            # the f64 default is meaningless without x64, and an f32 graph
+            # forms its per-edge geometry in f64 (models/ba.py); opt in on
+            # behalf of the user (JAX would otherwise silently truncate)
             jax.config.update("jax_enable_x64", True)
         self.dtype = jnp.float64 if options.dtype == "float64" else jnp.float32
         self.mixed = (

@@ -155,6 +155,49 @@ def test_stage_parity_phase(kwargs, tol, capsys):
     assert capsys.readouterr().out.count("max|gpu-cpu|") >= 10
 
 
+def _round_mantissa(bits):
+    """Round f32 values to ``bits`` explicit mantissa bits, to nearest."""
+    import jax.numpy as jnp
+
+    drop = 23 - bits
+    keep = jnp.uint32(~((1 << drop) - 1) & 0xFFFFFFFF)
+
+    def rounding(x):
+        b = jax.lax.bitcast_convert_type(x, jnp.uint32)
+        b = (b + jnp.uint32(1 << (drop - 1))) & keep
+        return jax.lax.bitcast_convert_type(b, jnp.float32)
+
+    return rounding
+
+
+@pytest.mark.parametrize("bits", [10, 7], ids=["tf32", "bf16"])
+def test_stage_parity_fails_terms_rounded_to_lower_precision(bits,
+                                                             monkeypatch):
+    """On the device standing in for the card, build_system's per-edge
+    quadratic-form terms are rounded to TF32's or bf16's mantissa, as a
+    lower-precision contraction would round them: the f32 gate must fail."""
+    from cuda_bundle_adjustment_tpu.ops import components as C
+    from cuda_bundle_adjustment_tpu.solver import block_solver as bs
+
+    d = jax.devices()
+    real, stacks = bs.build_system_jit, C.weighted_block_stacks
+    rounding = _round_mantissa(bits)
+
+    def rounded_stacks(*args):
+        return tuple(None if x is None else rounding(x) for x in stacks(*args))
+
+    def degraded(graph, packed, plan, metas, Pa, La):
+        if graph.q.devices() != {d[1]}:
+            return real(graph, packed, plan, metas, Pa, La)
+        with monkeypatch.context() as m:
+            m.setattr(C, "weighted_block_stacks", rounded_stacks)
+            return bs.build_system(graph, packed, metas, Pa, La, plan)
+
+    monkeypatch.setattr(bs, "build_system_jit", degraded)
+    with pytest.raises(cs.PhaseFailed, match="build_system"):
+        cs.stage_parity("tiny", _tiny(), F32_HUBER, cs.F32_TOL, d[1], d[0])
+
+
 def test_trace_and_chi0_parity_phases():
     from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem
 
